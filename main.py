@@ -2,10 +2,11 @@
 
 Same flags, defaults and behaviors (path-sample override, capability listing,
 Mrays/sec report); the renderer default maps the reference's
-``cuda_texture_raytracer`` onto its TPU equivalent, and the reference's
-``cuda_*`` names are accepted as aliases.  Extra TPU-specific flags are
+``cuda_texture_raytracer`` onto this package's ``tpu_texture_raytracer``, and
+the reference's ``cuda_*`` names are accepted as aliases.  Extra flags are
 additive: ``--seed``, ``--chunk-rays``, ``--progressive``, ``--checkpoint``,
-``--devices``, ``--trace-dir``, ``--no-show``.
+``--devices``, ``--trace-dir``, ``--no-show``.  The compile cache follows
+``JAX_COMPILATION_CACHE_DIR``, else ``<checkout>/.jax_cache``.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from path_tracing__ray_tracer_tpu.utils.profiling import maybe_trace
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        description="TPU-native modular ray tracer with path tracing"
+        description="JAX modular ray tracer with path tracing"
     )
     parser.add_argument(
         "--renderer",
@@ -40,8 +41,7 @@ def build_parser() -> argparse.ArgumentParser:
         help=(
             "scene selection ('original' is accepted-but-ignored for flag "
             "parity with the reference; 'mesh' is the 11.5K-triangle "
-            "BVH-stress icosphere scene, 'mesh_big' the 128K-triangle "
-            "paged-traversal stress)"
+            "BVH-stress icosphere scene, 'mesh_big' the 128K-triangle one)"
         ),
     )
     parser.add_argument("--width", "-w", type=int, default=2000, help="image width")
@@ -55,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
         default=1024,
         help="samples per pixel for the path tracer",
     )
-    # ---- TPU-framework additions ------------------------------------------
+    # ---- additions beyond the reference's flags -----------------------------
     parser.add_argument("--seed", type=int, default=0, help="RNG seed")
     parser.add_argument(
         "--jitter",
@@ -87,9 +87,7 @@ def build_parser() -> argparse.ArgumentParser:
         default=0,
         help=(
             "cap texture max dimension (box-filtered atlas downsample); "
-            "0 = reference-exact full resolution; 256 measures ~15%% faster "
-            "at the bench config but differs from exact by RMSE ~6/255 "
-            "(BENCHMARKS.md)"
+            "0 = reference-exact full resolution"
         ),
     )
     parser.add_argument(
@@ -97,8 +95,8 @@ def build_parser() -> argparse.ArgumentParser:
         type=int,
         default=None,
         help=(
-            "ray-batch budget per device step (default: 1<<23 for the path "
-            "tracer, 1<<21 otherwise — the measured optima, BENCHMARKS.md)"
+            "ray-batch budget per device step (default: 1<<24 for the path "
+            "tracer, 1<<21 otherwise)"
         ),
     )
     parser.add_argument(
@@ -141,8 +139,12 @@ def main(argv=None) -> int:
         max_depth=args.depth,
     )
 
-    from path_tracing__ray_tracer_tpu.utils.backend import probe_backend
+    from path_tracing__ray_tracer_tpu.utils.backend import (
+        enable_compile_cache,
+        probe_backend,
+    )
 
+    enable_compile_cache()
     platform = probe_backend()
     print(f"Backend: {platform}")
 
@@ -163,11 +165,11 @@ def main(argv=None) -> int:
     resolved_name = RendererFactory.resolve(args.renderer)
     chunk_rays = args.chunk_rays
     if chunk_rays is None:
-        # path tracer: 1<<24 items / group 128 = the measured 131072-lane
-        # knee (experiments/measure_group128.py); Whitted renderers keep
-        # the smaller chunk (their megakernel sweeps all 16 lights per lane).
-        # When spp < 128 clamps the group, the renderer's lane-width cap
-        # (wavefront._MAX_CHUNK_LANES) keeps the kernel at 131072 lanes.
+        # path tracer: 1<<24 items / group 128 = 131072 lanes; Whitted
+        # renderers keep a smaller chunk (each lane sweeps all 16 lights per
+        # bounce).  When spp < 128 clamps the group, the renderer's
+        # lane-width cap (wavefront._MAX_CHUNK_LANES) keeps 131072 lanes.
+        # Both unmeasured on the H100.
         chunk_rays = 1 << 24 if resolved_name == "tpu_path_raytracer" else 1 << 21
     kwargs = {
         "chunk_rays": chunk_rays,
@@ -191,13 +193,11 @@ def main(argv=None) -> int:
     renderer = RendererFactory.create(args.renderer, **kwargs)
     print(f"Capabilities: {', '.join(renderer.get_capabilities())}")
 
-    # ETA heuristic (reference main.py:80-86 prints one per renderer class;
-    # constants re-calibrated to this framework's measured TPU throughput)
+    # render-class notes (reference main.py:80-86 prints one per renderer
+    # class)
     resolved = RendererFactory.resolve(args.renderer)
-    px = args.width * args.height
     if resolved == "tpu_path_raytracer":
-        eta = px * effective_samples * args.depth / 200e6 + 10
-        print(f"Estimated render time: ~{eta:.0f}s (Global Illumination)")
+        print("Rendering: Global Illumination")
     elif resolved == "cpu_raytracer":
         print("Estimated render time: 30-60s+ (CPU-parity oracle)")
         from path_tracing__ray_tracer_tpu.models.whitted_oracle import (
@@ -211,8 +211,7 @@ def main(argv=None) -> int:
                 "<0.85^12 of a glass path's energy (QUIRKS.md)"
             )
     else:
-        eta = max(3.0, px * effective_samples * args.depth / 1.3e9 + 3)
-        print(f"Estimated render time: ~{eta:.0f}s (TPU accelerated)")
+        print(f"Rendering: Whitted ray tracing on {platform}")
 
     from path_tracing__ray_tracer_tpu.utils.debug import debug_nans
 

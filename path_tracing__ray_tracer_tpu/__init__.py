@@ -1,9 +1,10 @@
-"""TPU-native ray tracer / path tracer.
+"""JAX ray tracer / path tracer.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 ``enginism/Path-Tracing__ray-tracer`` (a CUDA Cornell-box renderer): the same
 scene/camera/material/geometry API and the same four renderer modes behind a
-factory, re-architected as wavefront SoA passes over device meshes.
+factory, re-architected as wavefront SoA passes over device meshes.  The
+package and ``tpu_*`` renderer names are kept as public API.
 
 Quick start::
 
@@ -37,15 +38,8 @@ from .models.base import BaseRenderer, RendererFactory  # noqa: F401
 # importing renderer modules registers them with the factory (same
 # self-registration pattern as the reference, base_renderer.py:36-39)
 from .models import whitted as _whitted  # noqa: F401,E402
-
-try:  # path tracer / oracle may land later in partial checkouts
-    from .models import path_tracer as _path_tracer  # noqa: F401,E402
-except ImportError:  # pragma: no cover
-    pass
-try:
-    from .models import whitted_oracle as _whitted_oracle  # noqa: F401,E402
-except ImportError:  # pragma: no cover
-    pass
+from .models import path_tracer as _path_tracer  # noqa: F401,E402
+from .models import whitted_oracle as _whitted_oracle  # noqa: F401,E402
 
 from .scene_builders.custom_scene_builder import CustomSceneBuilder  # noqa: F401,E402
 

@@ -1,12 +1,12 @@
 """Scene compiler: host object graph → static-shaped device SoA pytree.
 
-The TPU analogue of the reference's per-renderer flatteners
+The device-side form of the reference's per-renderer flatteners
 (``cuda_texture_renderer.py:790-973``): the object-oriented ``Scene`` is
 lowered once into structure-of-arrays ``jnp`` buffers that every wavefront
 pass consumes.  Differences from the reference wire format, by design:
 
-* SoA (x/y/z as separate arrays) instead of interleaved float records — TPU
-  lanes want dense same-component vectors (see ``ops/v3.py``).
+* SoA (x/y/z as separate arrays) instead of interleaved float records —
+  vector lanes want dense same-component arrays (see ``ops/v3.py``).
 * One unified per-primitive material table in plane→sphere→triangle order,
   so a single gather by "global primitive index" fetches the winner's
   material after intersection.
@@ -76,7 +76,7 @@ class TrianglesSoA(NamedTuple):
 class QuadsSoA(NamedTuple):
     """Parallelogram quads merged from adjacent triangle pairs.
 
-    A TPU-first optimization with no reference counterpart: the Cornell
+    An optimization with no reference counterpart: the Cornell
     scene's 26 triangles are 13 parallelograms (12 cube faces + canvas), and
     one quad test costs less than half of two Möller–Trumbore tests in the
     brute-force sweep.  ``du``/``dv`` are the precomputed dual vectors of the
@@ -113,7 +113,7 @@ class CompiledScene(NamedTuple):
     bvh: object = None  # Optional[ops.bvh.FlatBVH] over triangles (big scenes)
     # optional low-resolution mip of the atlas (``mip_budget`` compile arg):
     # sampled by secondary bounces in the path tracer's deferred-texture mode
-    # (models/path_tracer.py) via the MXU one-hot gather.  None = not built.
+    # (models/experimental.py).  None = not built.
     mip_atlas: jnp.ndarray = None  # (Mpix,) int32 packed texels
     mip_offset: jnp.ndarray = None  # (T,) int32
     mip_width: jnp.ndarray = None
@@ -121,23 +121,20 @@ class CompiledScene(NamedTuple):
     # static shape-encoded flag (a jit arg keeps shapes, loses Python
     # values): (1,) int8 when any TRIANGLE material is textured, (0,)
     # otherwise — scene_hit skips the 6 per-lane triangle-uv interpolation
-    # gathers when nothing reads them (mesh scenes; measured in
-    # BENCHMARKS.md round 3).  None (hand-built scenes) = assume textured.
+    # gathers when nothing reads them (mesh scenes).  None (hand-built
+    # scenes) = assume textured.
     tri_uv_used: jnp.ndarray = None
     # same encoding for "ANY primitive is textured": (0,) lets
     # resolve_base_color return the material color without the per-lane
-    # atlas gather — on an untextured scene that gather still pays the flat
-    # ~7 ns/lane HLO-gather floor per bounce against the 1-texel dummy
-    # atlas (pure waste; measured in BENCHMARKS.md round 3).  None
-    # (hand-built scenes) = assume textured.
+    # atlas gather into the 1-texel dummy atlas.  None (hand-built scenes) =
+    # assume textured.
     any_textured: jnp.ndarray = None
     # Unique-material compression: scenes carry few *distinct* materials
     # (Cornell: 16; the 11.5K-tri mesh scene: a handful), so the per-lane
     # material fetch needs ONE int32 gather (prim → unique id) instead of
     # ten — the other nine fields resolve from ``mat_table`` by select
-    # chain (ops/select_table.py; gathers are a flat ~7 ns/lane on this
-    # backend, so 9 saved gathers ≈ 8 ms per 131K-lane bounce — measured,
-    # BENCHMARKS.md round 3).  None when the scene has more than
+    # chain (ops/select_table.py).  Unmeasured on the H100.  None when the
+    # scene has more than
     # ``select_table.SELECT_LIMIT`` distinct materials (falls back to the
     # per-prim gather form).
     mat_uid: jnp.ndarray = None  # (M,) int32 unique-material index
@@ -301,9 +298,9 @@ def compile_scene(
 
     ``texture_budget`` caps each texture's max dimension (box-filter
     downsample at atlas build).  0 keeps the reference-exact full resolution.
-    TPU random-gather throughput scales with table size — a 256-budget atlas
-    (~1.7 MB) samples ~2.6× faster than the full 17M-texel atlas on v5e —
-    while renders at typical resolutions minify these textures anyway.
+    A smaller atlas is a smaller random-gather working set, while renders at
+    typical resolutions minify these textures anyway.  Unmeasured on the
+    H100.
     """
     planes = [o for o in scene.objects if isinstance(o, Plane)]
     spheres = [o for o in scene.objects if isinstance(o, Sphere)]
@@ -464,11 +461,9 @@ def compile_scene(
 
     # ---- acceleration structure -------------------------------------------------
     # Brute-force sweeps beat tree walks below a few hundred primitives
-    # (every candidate is one fused VPU pass); beyond that, build the flat
-    # BVH.  ``use_bvh=False`` forces the sequential fori sweep even for big
-    # scenes — on backends where vector gathers are expensive (see
-    # QUIRKS/perf notes) the gather-heavy BVH walk can lose to the
-    # scalar-indexed sweep.
+    # (every candidate is one fused elementwise pass); beyond that, build the
+    # flat BVH.  ``use_bvh=False`` forces the sequential fori sweep even for
+    # big scenes.
     flat_bvh = None
     if use_bvh is None:
         use_bvh = len(tris) > BVH_THRESHOLD
@@ -480,25 +475,7 @@ def compile_scene(
         v2 = np.stack([np.asarray(t.v2.to_np()) for t in tris])
         tri_min = np.minimum(np.minimum(v0, v1), v2)
         tri_max = np.maximum(np.maximum(v0, v1), v2)
-        # vertices enable the Pallas block-synchronous traversal blobs; the
-        # stored normals ride in the slot records so the attrs walk is
-        # bit-identical to a triangles.normal gather
-        nrm = np.stack([np.asarray(t.normal.to_np()) for t in tris])
-        # per-triangle unique-material ids pack into the slot gid field when
-        # the scene has a compressed material table and the counts fit the
-        # f32-exact range — enables the whole-bounce BVH megakernel
-        # (ops/pallas/bounce_bvh_pallas.py) to resolve the winner's material
-        # gather-free in-kernel
-        from .ops.pallas.bvh_pallas import GID_UID_SHIFT
-
-        tri_uid = None
-        if mat_uid is not None and len(tris) <= GID_UID_SHIFT:
-            tri_base = p_pad + s_pad + q_pad
-            tri_uid = uid[tri_base : tri_base + len(tris)].astype(np.int32)
-        flat_bvh = bvh_mod.to_device(
-            bvh_mod.build_bvh(tri_min, tri_max), v0=v0, v1=v1, v2=v2, nrm=nrm,
-            uid=tri_uid,
-        )
+        flat_bvh = bvh_mod.to_device(bvh_mod.build_bvh(tri_min, tri_max))
 
     tri_textured = any(
         t.material is not None and t.material.texture is not None for t in tris
@@ -531,12 +508,10 @@ def compile_scene(
 
 def _build_atlas(texture_paths: List[str], texture_budget: int = 0):
     """Concatenate all textures row-major into one packed-int32 atlas
-    (TPU analogue of ``cuda_texture_renderer.py:910-955``).
+    (the device-side form of ``cuda_texture_renderer.py:910-955``).
 
     One int32 per texel (0x00BBGGRR): a single vector gather per sample
-    instead of three uint8 gathers — random gathers are the path tracer's
-    dominant per-bounce cost on TPU (~18 ns/element), and int32 is the
-    hardware-native width.
+    instead of three uint8 gathers.  Textures are decoded with Pillow.
     """
     from PIL import Image
 

@@ -5,8 +5,9 @@ API parity with the reference's swappable-renderer design
 ``render() -> PIL.Image`` plus ``get_capabilities()``, registers itself under
 a string key at import time, and the CLI enumerates the registry for its
 ``--renderer`` choices.  Extensions over the reference: alias names (so the
-reference's ``cuda_*`` renderer names keep working against their TPU
-equivalents), constructor kwargs pass-through, and registry introspection.
+reference's ``cuda_*`` renderer names keep working against their ``tpu_*``
+equivalents here), constructor kwargs pass-through, and registry
+introspection.
 """
 from __future__ import annotations
 

@@ -1,27 +1,20 @@
-"""Quarantined measured-negative scheduler modes (round-3 records).
+"""Texture-approximation scheduler modes of the path tracer.
 
 This module holds the full-featured variant of the regeneration scheduler
-with the three modes that were built, proven equivalent, measured as LOSSES
-on this backend, and kept only as records + tested capabilities
-(BENCHMARKS.md round 3; VERDICT round-3 #7 asked for this boundary):
+with two modes that trade exact secondary-bounce textures for fewer reads of
+the full-resolution atlas.  Both are off by default and proven against the
+exact path in tests; neither is measured on the H100.
 
 * **Deferred-texture mode** (``compile_scene(mip_budget=...)``): exact atlas
   gather once per path instead of once per bounce, secondary bounces from a
-  mip.  Measured −40%: the HLO gather is a flat ~7 ns/lane however small the
-  table, and the defer bookkeeping costs more than the gather it removes.
-* **Texture-LOD mode** (``TPUPathTracer(texture_lod=...)``): full-res gather
-  for shallow bounces, mip for deep ones.  Measured −40% for the same
-  flat-floor reason (any second gather pays the same floor).
-* **Fused in-kernel regeneration** (``_PIPE_REGEN`` /
-  ``bounce_pallas._path_step_kernel``): the whole scheduler glue inside the
-  bounce launch.  Measured flat — the widened 29-in/38-out lane-state
-  roundtrip cancels the fused-glue savings.
+  mip.
+* **Texture-LOD mode** (``PathTracer(texture_lod=...)``): full-res gather
+  for shallow bounces, mip for deep ones.
 
 ``models.path_tracer._regen_chunk`` (the production path) delegates here
 whenever one of the modes is requested, so the hot file stays single-mode.
-The scheduler body below is a frozen copy of the round-3 multi-mode
-implementation; its standard path remains equivalence-tested against the
-production one through the delegation in tests/test_pipe_regen.py,
+The standard path of the scheduler below is equivalence-tested against the
+production one (tests/test_regen.py), and the modes in
 test_defer_texture.py and test_texture_lod.py.
 """
 from __future__ import annotations
@@ -30,35 +23,14 @@ import jax
 import jax.numpy as jnp
 
 from ..ops import rng
+from ..ops.bounce import U_JITX, U_JITY
 from ..ops.camera import generate_rays
-from ..ops.pallas.texture_pallas import texel_index
-from ..ops.texture import resolve_base_color_lod
+from ..ops.texture import (
+    resolve_base_color_lod,
+    resolve_base_color_mip,
+    texel_index,
+)
 from ..ops.v3 import V3
-
-# RNG "use" slots (match models/path_tracer.py)
-_U_JITX, _U_JITY = 0, 1
-
-
-def _make_mip_resolve(cs):
-    """Secondary-bounce base-color resolver from the small mip atlas
-    (deferred-texture mode), or None when the scene has no mip."""
-    from ..ops.pallas.texture_pallas import (
-        fits_mip,
-        pack_mip_table,
-        resolve_base_color_mip,
-    )
-
-    if cs.mip_atlas is None or not fits_mip(cs):
-        return None
-    table = pack_mip_table(cs)
-
-    def resolve(out):
-        return resolve_base_color_mip(
-            cs, table, out.mat_color, out.tex_id, out.u, out.v
-        )
-
-    return resolve
-
 
 
 def regen_chunk_modes(
@@ -76,7 +48,7 @@ def regen_chunk_modes(
     jitter: str,
     shadow_tmax: str = "reference",
     lod_depth: int = 0,
-    pipe: bool = None,
+    kernel: bool = True,
 ):
     """Radiance sums via *ray regeneration*: one persistent pool of ``n_pix``
     lanes where a lane that finishes a path (miss / RR kill / throughput
@@ -111,60 +83,40 @@ def regen_chunk_modes(
     changes.
 
     **Deferred-texture mode** (active when the scene carries a mip atlas,
-    ``compile_scene(mip_budget=...)``): the exact atlas gather — a flat
-    ~7 ns/lane on this backend, ~83% of a Cornell bounce — runs once per
+    ``compile_scene(mip_budget=...)``): the exact atlas gather runs once per
     *item* instead of once per *bounce*.  A path's radiance is linear in its
     camera-bounce base color (each bounce's base enters its own NEE term and
     the throughput as an exponent-0/1 factor), so the loop accumulates
     ``A + base₀·B`` per item with base₀ symbolic: the camera bounce records
     its exact texel index (vector math, no gather), bounces ≥ 1 sample the
-    small mip via the MXU one-hot kernel, and ONE bulk gather per chunk
-    resolves every item's base₀ at the fold.  RR/cutoff decisions use the
-    mip-estimated throughput, so with ``mip_budget == texture_budget`` the
-    mode reproduces the exact path bit-for-bit up to FMA reassociation
-    (tested); with a real (smaller) mip only secondary-bounce texture detail
-    is approximated — the camera-visible texture stays exact.
-
-    Measured outcome (round 3, BENCHMARKS.md "Deferred-texture mode"): a
-    NET LOSS on this backend — the HLO gather is flat ~7 ns/lane even for a
-    128-entry mip, and the defer bookkeeping costs more per chunk than the
-    per-bounce gather it removes.  Kept as a correct, tested, gated-off
-    capability; do not enable it for throughput.
+    small mip, and ONE bulk gather per chunk resolves every item's base₀ at
+    the fold.  RR/cutoff decisions use the mip-estimated throughput, so with
+    ``mip_budget == texture_budget`` the mode reproduces the exact path
+    bit-for-bit up to FMA reassociation (tested); with a real (smaller) mip
+    only secondary-bounce texture detail is approximated — the
+    camera-visible texture stays exact.
     """
-    # scheduler knobs are shared with the production module so tests and
-    # experiments that monkeypatch path_tracer._TAIL_QUANT etc. affect
-    # both paths identically
+    # scheduler knobs are shared with the production module so tests that
+    # monkeypatch path_tracer._TAIL_QUANT etc. affect both paths identically
     from . import path_tracer as _pt
 
     _REGEN_SHUFFLE = _pt._REGEN_SHUFFLE
     _TAIL_DIV = _pt._TAIL_DIV
     _TAIL_QUANT = _pt._TAIL_QUANT
     _FOLD_EVERY = _pt._FOLD_EVERY
-    _PIPE_REGEN = _pt._PIPE_REGEN
-    _PROBE_ITERS = _pt._PROBE_ITERS
     NS = int(n_samples)
     N = int(n_pix)
     STRIDE = (int(N * 0.6180339887) | 1) % N if (NS > 1 and _REGEN_SHUFFLE) else 0
     total = width * height
     iter_cap = NS * max_depth + 2  # loop provably terminates; belt-and-braces
-    from .path_tracer import _T_MAX, _T_MIN, _make_bounce_and_resolve
+    from .path_tracer import _make_bounce_and_resolve
 
-    bounce_fn, resolve_fn = _make_bounce_and_resolve(cs, N, shadow_tmax)
+    bounce_fn, resolve_fn = _make_bounce_and_resolve(cs, shadow_tmax, kernel)
     # texture-LOD mode (``texture_lod``): bounces at depth >= lod_depth
     # sample the small mip atlas instead of the full-res one — see
     # resolve_base_color_lod.  Takes precedence over deferred-texture mode.
     lod = lod_depth > 0 and cs.mip_atlas is not None
-    mip_resolve = None if lod else _make_mip_resolve(cs)
-    defer = mip_resolve is not None
-    # fused in-kernel regeneration (module note at _PIPE_REGEN): same gate as
-    # the bounce megakernel — the step kernel embeds the same SMEM sweep.
-    # ``pipe=None`` defers to the module default; the renderer threads the
-    # flag through the jit static key so A/B experiments don't share a cache.
-    from ..ops.intersect import _pallas_enabled
-
-    if pipe is None:
-        pipe = _PIPE_REGEN
-    use_pipe = pipe and not defer and not lod and _pallas_enabled(cs)
+    defer = not lod and cs.mip_atlas is not None
 
     def make_ray(lane_ids, s):
         """Camera ray + RNG key for lane ``lane_ids``'s item ``s`` — exactly
@@ -178,8 +130,8 @@ def regen_chunk_modes(
         if jitter == "center":
             r1 = r2 = jnp.float32(0.5)
         else:
-            r1 = rng.uniform(key, max_depth, _U_JITX)
-            r2 = r1 if jitter == "diagonal" else rng.uniform(key, max_depth, _U_JITY)
+            r1 = rng.uniform(key, max_depth, U_JITX)
+            r2 = r1 if jitter == "diagonal" else rng.uniform(key, max_depth, U_JITY)
         u = (x + r1) / width
         v = (y + r2) / height
         o, d = generate_rays(cam12, u, v)
@@ -203,7 +155,9 @@ def regen_chunk_modes(
         out = bounce_fn(o, d, thr_dec, key, depth)
         zero = V3.full(0.0, m)
         if defer:
-            base = mip_resolve(out)
+            base = resolve_base_color_mip(
+                cs, out.mat_color, out.tex_id, out.u, out.v
+            )
             defer_now = (depth == 0) & (out.tex_id >= 0.0)
             idx0 = texel_index(cs, out.tex_id, out.u, out.v)
             full = thr * out.w_sky + thr * (base * out.w_nee)
@@ -277,7 +231,7 @@ def regen_chunk_modes(
     if defer:
         # deferred-texture mode (gated off by default) keeps the simple
         # per-iteration one-hot fold: its extra idx0/cB bookkeeping is per-
-        # bounce, and the mode is a recorded negative, not a perf path
+        # bounce, and the mode is not the production path
         def cond1(carry):
             st, _acc, it = carry
             return (jnp.sum(st[5] < NS) > tail) & (it < iter_cap)
@@ -299,139 +253,6 @@ def regen_chunk_modes(
             cond1, body1, (state0, acc0, jnp.int32(0))
         )
         psum1 = None
-    elif use_pipe:
-        # Fused in-kernel regeneration (_PIPE_REGEN): one Pallas launch per
-        # iteration runs glue(prev record) → regen → bounce(new rays)
-        # (ops/pallas/bounce_pallas._path_step_kernel).  The only XLA left per
-        # iteration is the atlas texel gather for the record's hit and the
-        # K-slot accumulator fold.  The kernel glue mirrors bounce_step term
-        # for term; equality is up to Mosaic-vs-XLA FMA contraction
-        # (tests/test_pipe_regen.py bounds it, exactly as test_regen does for
-        # the scheduler itself).
-        from ..ops.pallas.bounce_pallas import (
-            StepRec,
-            StepStatics,
-            pack_light_blob,
-            pack_mat_blob,
-            pack_tex_blob,
-            path_step_pallas,
-        )
-        from ..ops.pallas.intersect_pallas import blob_layout, pack_scene_blob
-
-        tex_on = not (
-            cs.any_textured is not None and cs.any_textured.shape[0] == 0
-        )
-        statics = StepStatics(
-            layout=blob_layout(cs),
-            n_mats=int(cs.materials.diffuse.shape[0]),
-            n_lights=cs.n_lights,
-            n_tex=int(cs.n_textures),
-            tex_on=tex_on,
-            t_min=_T_MIN,
-            t_max=_T_MAX,
-            shadow_light=(shadow_tmax == "light"),
-            jitter=jitter,
-            width=width,
-            height=height,
-            total=total,
-            stride=STRIDE,
-            n_pix=N,
-            ns=NS,
-            max_depth=max_depth,
-        )
-        blob = pack_scene_blob(cs)
-        mat_blob = pack_mat_blob(cs)
-        light_blob = pack_light_blob(cs)
-        tex_blob = pack_tex_blob(cs)
-        cam_smem = jnp.asarray(cam12, jnp.float32).reshape(1, 12)
-        scal = jnp.stack(
-            [
-                jnp.asarray(pix0, jnp.int32),
-                jax.lax.bitcast_convert_type(
-                    jnp.asarray(seed).astype(jnp.uint32), jnp.int32
-                ),
-                jnp.asarray(sample_base, jnp.int32),
-            ]
-        )[None, :]
-
-        zN = jnp.zeros((N,), jnp.float32)
-        oneN = jnp.ones((N,), jnp.float32)
-        # Priming record: glue(rec0) is an exact no-op that leaves every lane
-        # bouncing its initial camera ray at depth 0 — hit=1/kill=0 keep it
-        # live, wnee=0 contributes nothing, sthr=1/tthr=0 keep thr at 1, and
-        # depth −1 makes ndepth 0.
-        rec0 = StepRec(
-            idx=jnp.full((N,), -1, jnp.int32), hit=oneN, kill=zN, wnee=zN,
-            rrs=oneN, sthr=oneN, tthr=zN, no=o0, nd=d0, mc=V3(zN, zN, zN),
-        )
-        idx_g0 = pix0 + lane
-        ux0 = (idx_g0 % width).astype(jnp.int32)
-        uy0 = (idx_g0 // width).astype(jnp.int32)
-        K = _FOLD_EVERY
-        texel0 = jnp.zeros((N,), jnp.int32)
-
-        def gather_texel(idx):
-            # untextured scenes skip the gather entirely (the resolve gate:
-            # idx is −1 for every lane and the kernel falls back to mc)
-            if not tex_on:
-                return texel0
-            return cs.atlas[jnp.maximum(idx, 0)]
-
-        def cond1(carry):
-            return (jnp.sum(carry[7] < NS) > tail) & (carry[-1] < iter_cap)
-
-        def body1(carry):
-            rec, o, d, thr, psum, key, depth, s, ploc, ux, uy, acc, it = carry
-            s_item0 = jnp.full((K, N), NS, jnp.int32)
-            s_val0 = V3.full(0.0, (K, N))
-
-            def step(k, c):
-                (rec, o, d, thr, psum, key, depth, s, ploc, ux, uy,
-                 si, sv, it) = c
-                texel = gather_texel(rec.idx)
-                (rec, o, d, thr, psum, key, depth, s, ploc, ux, uy,
-                 item, park) = path_step_pallas(
-                    statics, blob, mat_blob, light_blob, tex_blob, cam_smem,
-                    scal, rec, texel, thr, psum, key, depth, s, ploc, ux, uy,
-                )
-                si = si.at[k].set(item)
-                sv = V3(
-                    sv.x.at[k].set(park.x),
-                    sv.y.at[k].set(park.y),
-                    sv.z.at[k].set(park.z),
-                )
-                return (rec, o, d, thr, psum, key, depth, s, ploc, ux, uy,
-                        si, sv, it + 1)
-
-            (rec, o, d, thr, psum, key, depth, s, ploc, ux, uy, s_item,
-             s_val, it) = jax.lax.fori_loop(
-                0, K, step,
-                (rec, o, d, thr, psum, key, depth, s, ploc, ux, uy,
-                 s_item0, s_val0, it),
-            )
-            # same non-overlapping K-slot one-hot fold as the XLA branch
-            adds = [jnp.float32(0.0)] * 3
-            for k in range(K):
-                hit_row = item_rows == s_item[k][None, :]
-                for c, ch in enumerate((s_val.x, s_val.y, s_val.z)):
-                    adds[c] = adds[c] + jnp.where(hit_row, ch[k][None, :], 0.0)
-            acc = tuple(a + add for a, add in zip(acc, adds))
-            return rec, o, d, thr, psum, key, depth, s, ploc, ux, uy, acc, it
-
-        carry0 = (
-            rec0, o0, d0, V3.full(1.0, (N,)), V3.full(0.0, (N,)), key0,
-            jnp.full((N,), -1, jnp.int32), jnp.zeros((N,), jnp.int32),
-            lane, ux0, uy0, acc0, jnp.int32(0),
-        )
-        (_rec, o, d, thr, psum1, key, depth, s, _pl, _ux, _uy, acc, _it
-         ) = jax.lax.while_loop(cond1, body1, carry0)
-        # The pending record (the last call's un-glued bounce) is DISCARDED:
-        # its lanes' s/psum are untouched, so phase 2 re-bounces exactly those
-        # (o, d, thr, key, depth) rays through the same megakernel physics —
-        # deterministic RNG makes the re-bounce identical.  The max() handles
-        # the zero-iteration case (chunk ≤ tail): the carried priming depth
-        # −1 must hand fresh camera rays to phase 2 at depth 0.
-        st1 = (o, d, thr, key, jnp.maximum(depth, 0), s)
     else:
         # K-slot fold (module note at _FOLD_EVERY): the loop carries a per-
         # lane running path sum; a finishing lane parks (item, sum) in slot
@@ -528,7 +349,6 @@ def regen_chunk_modes(
         return st, new, it + 1
 
     _st, acc, _it2 = jax.lax.while_loop(cond2, body2, (st_t, acc, jnp.int32(0)))
-    probe = (_it, _it2) if _PROBE_ITERS else None
 
     # ---- resolve deferred base₀ (ONE bulk gather per chunk) -----------------
     if defer:
@@ -553,8 +373,6 @@ def regen_chunk_modes(
             jnp.roll(rows[1][si], shift),
             jnp.roll(rows[2][si], shift),
         )
-    if probe is not None:
-        return out, probe[0], probe[1]
     return out
 
 

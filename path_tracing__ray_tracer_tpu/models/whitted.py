@@ -1,4 +1,4 @@
-"""Wavefront Whitted ray tracers — TPU equivalents of the reference's
+"""Wavefront Whitted ray tracers — the wavefront forms of the reference's
 ``cuda_raytracer`` (``renderers/cuda_renderer.py``) and
 ``cuda_texture_raytracer`` (``renderers/cuda_texture_renderer.py``, the CLI
 default that produced ``output_RayTracer.png``).
@@ -115,78 +115,8 @@ def _direct_lighting(cs, hit, base_color, mats, view_dir, variant: WhittedVarian
     return local + jax.lax.fori_loop(0, n_lights, light_body, zero)
 
 
-def _whitted_radiance_pallas(cs, org: V3, rd: V3, max_depth: int,
-                             variant: WhittedVariant) -> V3:
-    """Whitted bounce loop around the fused megakernel
-    (``ops/pallas/whitted_pallas.py``): closest hit + the whole 16-light
-    shadow loop + Phong in one kernel per bounce; the texture enters as
-    ``color += atten·(base·A + W)`` in this glue.  The carried attenuation is
-    a scalar (reference semantics), so the gather is off the critical path.
-    """
-    from ..ops.pallas.bounce_pallas import pack_light_blob, pack_mat_blob
-    from ..ops.pallas.intersect_pallas import pack_scene_blob
-    from ..ops.pallas.whitted_pallas import whitted_bounce_pallas
-
-    blob = pack_scene_blob(cs)
-    mat_blob = pack_mat_blob(cs)
-    light_blob = pack_light_blob(cs)
-    n = org.x.shape
-    zero = V3.full(0.0, n)
-
-    def cond(state):
-        depth, *_rest, active = state
-        return (depth < max_depth) & jnp.any(active)
-
-    def body(state):
-        depth, o, d, atten, color, active = state
-        out = whitted_bounce_pallas(
-            cs, blob, mat_blob, light_blob, o, d, depth, variant,
-            t_min=_T_MIN, t_max=_T_MAX,
-        )
-        base = resolve_base_color(
-            cs,
-            out.mat_color,
-            (out.tex_id >= 0.0).astype(jnp.float32),
-            out.tex_id.astype(jnp.int32),
-            out.u,
-            out.v,
-        )
-        lane = active & out.hit
-        contrib = (base * out.a + V3(out.w, out.w, out.w)) * atten
-        color = color + V3.where(lane, contrib, zero)
-
-        cont = lane & out.cont & (depth < max_depth - 1)
-        atten = jnp.where(cont, atten * out.mult, atten)
-        o = V3.where(cont, out.new_org, o)
-        d = V3.where(cont, out.new_dir, d)
-        return depth + 1, o, d, atten, color, cont
-
-    init = (
-        jnp.int32(0),
-        org,
-        rd,
-        jnp.ones(n, jnp.float32),
-        zero,
-        jnp.ones(n, dtype=bool),
-    )
-    *_s, color, _a = jax.lax.while_loop(cond, body, init)
-    return color
-
-
 def whitted_radiance(cs, org: V3, rd: V3, max_depth: int, variant: WhittedVariant) -> V3:
     """Trace one batch of rays to completion, returning radiance."""
-    from ..ops.intersect import _pallas_enabled
-
-    if _pallas_enabled(cs):
-        if org.x.shape[0] % 128 == 0:
-            return _whitted_radiance_pallas(cs, org, rd, max_depth, variant)
-        from ..utils.logging import log_event
-
-        log_event(  # fires at trace time, once per compiled shape
-            "fast_path_declined", path="whitted_pallas",
-            reason="batch_alignment", n_rays=int(org.x.shape[0]),
-        )
-
     def cond(state):
         depth, *_rest, active = state
         return (depth < max_depth) & jnp.any(active)
@@ -356,7 +286,7 @@ class _WhittedBase(WavefrontRenderer):
         return jnp.asarray(sums) / float(spp_total)
 
 
-class TPURayTracer(_WhittedBase):
+class WhittedRayTracer(_WhittedBase):
     """Parity renderer for ``cuda_raytracer`` (reflection-only Whitted,
     ``renderers/cuda_renderer.py``)."""
 
@@ -370,13 +300,13 @@ class TPURayTracer(_WhittedBase):
             "ray_tracing",
             "shadows",
             "reflection",
-            "tpu_acceleration",
+            "gpu_acceleration",
             "anti_aliasing",
             "xla_compute",
         ]
 
 
-class TPUTextureRayTracer(_WhittedBase):
+class TextureRayTracer(_WhittedBase):
     """Parity renderer for ``cuda_texture_raytracer`` (textured Whitted with
     refraction, ``renderers/cuda_texture_renderer.py`` — the CLI default)."""
 
@@ -392,14 +322,14 @@ class TPUTextureRayTracer(_WhittedBase):
             "reflection",
             "refraction",
             "textures",
-            "tpu_acceleration",
+            "gpu_acceleration",
             "anti_aliasing",
             "xla_compute",
             "all_geometry_types",
         ]
 
 
-RendererFactory.register("tpu_raytracer", TPURayTracer)
-RendererFactory.register("tpu_texture_raytracer", TPUTextureRayTracer)
+RendererFactory.register("tpu_raytracer", WhittedRayTracer)
+RendererFactory.register("tpu_texture_raytracer", TextureRayTracer)
 RendererFactory.register_alias("cuda_raytracer", "tpu_raytracer")
 RendererFactory.register_alias("cuda_texture_raytracer", "tpu_texture_raytracer")

@@ -2,7 +2,7 @@
 
 The reference's pointer-tree BVH (``core/acceleration.py``) is CPU-only and
 random-axis (SURVEY.md §2 quirks 1 & 11); no GPU renderer uses it.  This is
-the TPU-native replacement for large scenes:
+the device-side replacement for large scenes:
 
 * **Build** (host, numpy; optionally the C++ builder in ``native/``): binned
   SAH over triangle centroids, deterministic, emitting nodes in DFS order.
@@ -11,7 +11,7 @@ the TPU-native replacement for large scenes:
   past a leaf after its primitives are tested).  Leaves hold exactly
   ``LEAF_SIZE`` primitive slots, padded with ``-1`` sentinels, so every leaf
   visit tests a fixed number of primitives — no data-dependent trip counts
-  (the TPU constraint).
+  inside the lock-step walk.
 * **Traversal** (device): every ray carries its own node cursor; one
   ``lax.while_loop`` advances all cursors until all rays run off the end.
   All node/primitive accesses are vectorized gathers.
@@ -29,13 +29,9 @@ import numpy as np
 
 from .v3 import V3
 
-# leaves hold up to LEAF_SIZE triangles.  16 is the measured optimum for the
-# block-synchronous Pallas walk (v5e, 11.5K-tri mesh, 131K rays): per-step
-# overhead (scalar node reads + vector→scalar any-reduce) dominates the walk,
-# so fat leaves that shrink the tree win even though each leaf visit tests
-# more triangles.  closest/any Mrays/s by leaf size — 4: 9.9/7.2 incoherent,
-# 50/35 camera; 8: 11.9/9.4, 37/47; 16: 13.4/11.7, 70/60; 32: 13.3/12.0,
-# 55/49 (experiments/measure_bvh4.py).
+# leaves hold up to LEAF_SIZE triangles.  Fat leaves shrink the tree (fewer
+# walk steps, each a full-width gather of node boxes) at the price of more
+# triangle tests per leaf visit.  Unmeasured on the H100.
 LEAF_SIZE = 16
 _SAH_BINS = 16
 # candidate split axes per node: 1 = largest centroid-extent axis only
@@ -53,29 +49,6 @@ class FlatBVH(NamedTuple):
     skip: jnp.ndarray  # (M,) i32: next node when this box is missed / leaf done
     is_leaf: jnp.ndarray  # (M,) bool
     slots: jnp.ndarray  # (M, LEAF_SIZE) i32 triangle ids, -1 padded
-    # scalar blobs for the Pallas block-synchronous walk (pallas/bvh_pallas.py);
-    # None when built without vertex data
-    tree_blob: jnp.ndarray = None  # (1, 8M) f32 node records
-    slot_blob: jnp.ndarray = None  # (1, 10K) f32 leaf-ordered triangle records
-    # shape-encoded max tree depth (root = 1): ``shape[0]`` bounds the ordered
-    # walk's stack.  An array because jit erases Python ints but keeps shapes.
-    depth_token: jnp.ndarray = None  # (depth,) int8 zeros
-    # BVH4 (two collapsed levels) node records for the 4-wide Pallas walk;
-    # shares slot_blob with the BVH2 blobs.  None when the root is a leaf.
-    quad_blob: jnp.ndarray = None  # (1, 32·M4) f32
-    quad_depth_token: jnp.ndarray = None  # (depth4,) int8 zeros
-    # (16, G·128) f32 leaf coefficient matrix for the MXU leaf test
-    # (pallas/bvh_pallas.pack_leaf_mat); None when built without vertices
-    leaf_mat: jnp.ndarray = None
-    # shape-encoded flag: (1,) when the slot-blob gids carry packed
-    # unique-material ids (pallas/bvh_pallas.GID_UID_SHIFT), None otherwise.
-    # Closest-walk wrappers decode; the whole-bounce BVH megakernel reads
-    # the winner's material gather-free from the packed uid.
-    uid_token: jnp.ndarray = None
-    # two-level (paged) blobs for trees too big for the SMEM-resident walk
-    # (pallas/bvh_paged_pallas.PagedBlobs); None when the one-level blobs
-    # fit SMEM or paging is not applicable
-    paged: object = None
 
     @property
     def n_nodes(self) -> int:
@@ -230,65 +203,14 @@ def build_bvh(
     }
 
 
-def to_device(arrs, v0: np.ndarray = None, v1: np.ndarray = None,
-              v2: np.ndarray = None, nrm: np.ndarray = None,
-              uid: np.ndarray = None) -> FlatBVH:
-    """Upload a ``build_bvh`` result; with triangle vertices also pack the
-    scalar blobs that enable the Pallas block-synchronous traversal.
-    ``nrm`` should be the same stored unit normals as ``triangles.normal``
-    so the in-kernel attrs path is bit-identical to the gather path.
-    ``uid`` (per-triangle unique-material ids, optional) packs into the slot
-    gid field for the whole-bounce megakernel (bvh_pallas.GID_UID_SHIFT);
-    pass only when the counts fit the f32-exact packing range."""
-    tree_blob = slot_blob = depth_token = None
-    quad_blob = quad_depth_token = leaf_mat = uid_token = paged = None
-    if v0 is not None:
-        from .pallas.bvh_pallas import pack_blobs, pack_blobs4, pack_leaf_mat
-
-        tree_np, slot_np, depth = pack_blobs(arrs, np.asarray(v0, np.float32),
-                                             np.asarray(v1, np.float32),
-                                             np.asarray(v2, np.float32),
-                                             nrm=nrm, uid=uid)
-        tree_blob = jnp.asarray(tree_np)
-        slot_blob = jnp.asarray(slot_np)
-        # static tree-depth carrier: jit args lose Python ints, shapes survive
-        depth_token = jnp.zeros((depth,), jnp.int8)
-        quad_np, depth4 = pack_blobs4(arrs)
-        if quad_np is not None:
-            quad_blob = jnp.asarray(quad_np)
-            quad_depth_token = jnp.zeros((depth4,), jnp.int8)
-        leaf_mat = jnp.asarray(pack_leaf_mat(
-            arrs, np.asarray(v0, np.float32), np.asarray(v1, np.float32),
-            np.asarray(v2, np.float32), nrm=nrm, uid=uid,
-        ))
-        if uid is not None:
-            uid_token = jnp.zeros((1,), jnp.int8)
-        # trees too big for the one-level SMEM walk get the two-level paged
-        # layout instead (top tree in SMEM, subtree pages streamed from HBM)
-        from .pallas.bvh_pallas import SMEM_BLOB_LIMIT, fits_smem_bvh
-        from .pallas.bvh_paged_pallas import pack_paged
-
-        one_level = (quad_blob if quad_blob is not None else tree_blob)
-        if (int(one_level.shape[1]) + int(slot_blob.shape[1])
-                > SMEM_BLOB_LIMIT):
-            paged = pack_paged(
-                arrs, np.asarray(v0, np.float32), np.asarray(v1, np.float32),
-                np.asarray(v2, np.float32), nrm=nrm, uid=uid,
-            )
+def to_device(arrs) -> FlatBVH:
+    """Upload a ``build_bvh`` result."""
     return FlatBVH(
         lo=jnp.asarray(arrs["lo"]),
         hi=jnp.asarray(arrs["hi"]),
         skip=jnp.asarray(arrs["skip"]),
         is_leaf=jnp.asarray(arrs["is_leaf"]),
         slots=jnp.asarray(arrs["slots"]),
-        tree_blob=tree_blob,
-        slot_blob=slot_blob,
-        depth_token=depth_token,
-        quad_blob=quad_blob,
-        quad_depth_token=quad_depth_token,
-        leaf_mat=leaf_mat,
-        uid_token=uid_token,
-        paged=paged,
     )
 
 
@@ -319,7 +241,7 @@ def traverse_closest(
 
     # Safety bound: the skip-walk advances every cursor monotonically, so a
     # correct tree terminates in ≤ m iterations; the cap turns a corrupted
-    # tree (cycle) into a truncated render instead of a TPU watchdog kill.
+    # tree (cycle) into a truncated render instead of a hung device.
     def cond(state):
         step, cursor, _bt, _bi = state
         return (step < m + 1) & jnp.any(cursor < m)

@@ -2,29 +2,29 @@
 
 The reference threads mutable per-thread RNG state through its megakernels
 (LCG: ``cuda_renderer.py:74-78``; xorshift32: ``cuda_path_tracer.py:61-66``).
-A wavefront TPU renderer wants *stateless, counter-based* streams instead:
+A wavefront renderer wants *stateless, counter-based* streams instead:
 every random number is a pure function of (seed, pixel, sample, depth, use),
 so passes can be reordered, sharded and resumed without carrying state.
 
 We use the murmur3 finalizer (fmix32) as the mixing function: strong
-avalanche, and — critically for TPU — **fixed shift amounts only**.  The
-PCG-RXS-M-XS hash was measured 460× slower here: its data-dependent shift
-``state >> ((state >> 28) + 4)`` defeats Mosaic's vectorizer when fused into
-a bounce-loop body (0.10 ms → 46 ms per 8-bounce loop over 128K rays on
-v5e).  Unlike ``jax.random``'s threefry this costs a handful of VPU ops per
-number, cheap enough for dozens of draws per bounce.  Distribution-level
+avalanche and **fixed shift amounts only**, so the same few integer ops
+run in XLA and inside the fused bounce kernel.  Unlike ``jax.random``'s
+threefry this costs a handful of integer ops per number, cheap enough for
+dozens of draws per bounce.  Distribution-level
 (not bitwise) equivalence with the reference streams is the compatibility
 target (SURVEY.md §7, "RNG fidelity").
 """
 from __future__ import annotations
 
 import jax.numpy as jnp
+import numpy as np
 
 _U32 = jnp.uint32
 # Odd 32-bit constants used to decorrelate key dimensions (golden-ratio based,
-# standard PCG/SplitMix mixing constants).
-_GAMMA_DEPTH = jnp.uint32(0x9E3779B9)
-_GAMMA_USE = jnp.uint32(0x85EBCA6B)
+# standard PCG/SplitMix mixing constants).  NumPy scalars, so a Pallas kernel
+# that draws numbers sees literals, not captured device arrays.
+_GAMMA_DEPTH = np.uint32(0x9E3779B9)
+_GAMMA_USE = np.uint32(0x85EBCA6B)
 
 
 def pcg_hash(x: jnp.ndarray) -> jnp.ndarray:

@@ -43,13 +43,11 @@ def pick_light(cs: CompiledScene, point: V3, r: jnp.ndarray):
     n_lights = cs.n_lights
     li = jnp.minimum((r * n_lights).astype(jnp.int32), n_lights - 1)
     if n_lights <= SELECT_LIMIT:
-        # gather-free row pick (flat ~7 ns/lane per HLO gather on this
-        # backend; three gathers ≈ 1 ms per 131K-lane bounce — measured,
-        # experiments/measure_glue2.py).  Bit-exact vs .take.
+        # gather-free row pick (ops/select_table.py).  Bit-exact vs .take.
         lx, ly, lz = take_rows(li, (cs.lights.x, cs.lights.y, cs.lights.z))
         lp = V3(lx, ly, lz)
     else:
-        lp = cs.lights.take(li)
+        lp = cs.lights.at_index(li)
     to_light = lp - point
     dist = to_light.norm()
     ldir = to_light * (1.0 / jnp.where(dist > 0.001, dist, 1.0))

@@ -1,12 +1,9 @@
 """Gather-free small-table row lookup via an exact select chain.
 
-On this TPU backend an HLO gather costs a flat ~7 ns/lane *regardless of
-table size* (measured down to 128-entry tables — BENCHMARKS.md round 3,
-``experiments/measure_tex3.py``), so fetching a K-field record by per-lane
-index pays K gathers ≈ K × 0.9 ms per 131K lanes.  For *small* tables the
-same lookup is a chain of lane-wise selects — pure VPU work that XLA fuses
-into the surrounding loop body (~U×0.15 µs per field at 131K lanes, three
-orders of magnitude cheaper at U ≤ 128).
+Fetching a K-field record by per-lane index costs K gathers.  For *small*
+tables the same lookup is a chain of lane-wise selects — elementwise work
+that XLA fuses into the surrounding loop body.  Which form is faster on the
+H100 is unmeasured (ROADMAP S7).
 
 The chain is **bit-exact**: no arithmetic touches the values, each lane
 takes exactly the row its index names.  Out-of-range indices (< 0 or ≥ U)
@@ -16,8 +13,7 @@ resolve to row U−1's value for negatives via the final ``where`` fallthrough
 Used for the per-primitive material record (via a per-prim unique-material
 id, ``compiler.compile_scene``) and the NEE light-sample pick
 (``ops/sampling.pick_light``).  The reference has no analogue — its CUDA
-threads do scalar indexed loads (``cuda_path_tracer.py:496-730``); this is
-TPU-vector-unit-first design.
+threads do scalar indexed loads (``cuda_path_tracer.py:496-730``).
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
-"""Vectorized texture-atlas sampling (TPU analogue of ``cuda_sample_texture``,
-``cuda_texture_renderer.py:117-143``): nearest-neighbour with V flip, a
-single vector gather into the packed-int32 atlas.
+"""Vectorized texture-atlas sampling (the wavefront form of
+``cuda_sample_texture``, ``cuda_texture_renderer.py:117-143``):
+nearest-neighbour with V flip, a single vector gather into the packed-int32
+atlas.
 """
 from __future__ import annotations
 
@@ -11,19 +12,13 @@ from ..compiler import CompiledScene
 from .select_table import SELECT_LIMIT, take_rows
 from .v3 import V3
 
-# Compacted per-bounce gather — built, bit-exact, and a MEASURED LOSS; kept
-# gated off as the fourth recorded negative on the texture-gather front
-# (after defer/LOD/MXU-mip — BENCHMARKS.md).  Idea: only the textured-hit
-# lanes (12–21% on the Cornell bench scene, experiments/measure_texfrac.py)
-# need a texel, so stable-sort them to the front, gather ONE static prefix
-# of N/TEX_COMPACT_DIV elements, and index-sort the texels back; a lax.cond
-# falls back to the full-width gather when the count overflows the prefix
-# (bit-identical either way).  Measured at the honest bench config
-# (experiments/measure_compact.py, 1024² d8 group 64 budget 0):
-# off 206.2/207.9 Mrays/s, DIV=4 190.1, DIV=8 142.7 — the two 8M-lane
-# stable sorts cost more than the ~0.92 ms gather they save, and the
-# lax.cond splits the fused loop body.  Same flat-floor story as the other
-# schemes: gather width is not the knob this backend rewards.
+# Compacted per-bounce gather — built, bit-exact, gated off.  Idea: only the
+# textured-hit lanes need a texel, so stable-sort them to the front, gather
+# ONE static prefix of N/TEX_COMPACT_DIV elements, and index-sort the texels
+# back; a lax.cond falls back to the full-width gather when the count
+# overflows the prefix (bit-identical either way).  The two full-width sorts
+# cost more than they save unless the gather dominates; unmeasured on the
+# H100.
 TEX_COMPACT = False
 TEX_COMPACT_DIV = 4
 # below this lane count the full gather is already cheap and the sort
@@ -38,8 +33,7 @@ def _nearest_index(tex_id, u, v, widths, heights, offsets, n_textures: int):
     tables (full atlas or mip)."""
     tid = jnp.clip(tex_id, 0, n_textures - 1)
     if n_textures <= SELECT_LIMIT:
-        # gather-free row pick from the tiny info table (bit-exact; HLO
-        # gathers cost a flat ~7 ns/lane however small the table is)
+        # gather-free row pick from the tiny info table (bit-exact)
         w, h, off = take_rows(tid, (widths, heights, offsets))
     else:
         w = widths[tid]
@@ -106,7 +100,7 @@ def resolve_base_color(cs: CompiledScene, mat_color: V3, has_tex, tex_id, u, v) 
     if cs.any_textured is not None and cs.any_textured.shape[0] == 0:
         # no textured primitive in the scene: ``has_tex`` is all-zero, so
         # the select below is identically ``mat_color`` — skip the atlas
-        # gather entirely (flat ~7 ns/lane even on the 1-texel dummy atlas)
+        # gather entirely
         return mat_color
     textured = has_tex > 0.5
     if TEX_COMPACT and textured.ndim == 1 and int(textured.shape[0]) >= _COMPACT_MIN_LANES:
@@ -127,13 +121,9 @@ def resolve_base_color_lod(cs: CompiledScene, mat_color: V3, tex_id_f,
     lanes with ``exact_lane`` True sample the reference-exact full-res
     atlas; the rest sample the small ``mip_budget`` atlas.
 
-    The cost asymmetry this exploits (measured round 3, BENCHMARKS.md):
-    gathers into the ~70 MB full atlas are HBM-miss bound (~9× the
-    per-element cost of a cache-resident table), but the *expensive* part is
-    per distinct cache line — so non-exact lanes are pointed at texel 0,
-    collapsing their share of the big gather onto one hot line, while the
-    remaining exact lanes (camera/first bounces) are screen-coherent and
-    share lines.  The mip gather is a flat ~7 ns/lane regardless.
+    Non-exact lanes are pointed at texel 0 of the big atlas, so only the
+    exact lanes (camera and first bounces, which are screen-coherent) spread
+    over its cache lines.
     """
     textured = tex_id_f >= 0.0
     tex_id = jnp.where(textured, tex_id_f, 0.0).astype(jnp.int32)
@@ -145,4 +135,26 @@ def resolve_base_color_lod(cs: CompiledScene, mat_color: V3, tex_id_f,
                           cs.mip_offset, cs.n_textures)
     rgb_mip = _unpack_rgb(cs.mip_atlas[jnp.where(textured & ~exact_lane, midx, 0)])
     rgb = V3.where(exact_lane, rgb_exact, rgb_mip)
+    return V3.where(textured, rgb, mat_color)
+
+
+def texel_index(cs: CompiledScene, tex_id_f: jnp.ndarray, u: jnp.ndarray,
+                v: jnp.ndarray) -> jnp.ndarray:
+    """Flat full-atlas texel index per ray (same mapping as
+    ``sample_atlas``; untextured lanes, ``tex_id_f < 0``, clamp to texture 0
+    and are masked by the caller)."""
+    tid = jnp.where(tex_id_f >= 0.0, tex_id_f, 0.0).astype(jnp.int32)
+    return _nearest_index(tid, u, v, cs.tex_width, cs.tex_height,
+                          cs.tex_offset, cs.n_textures)
+
+
+def resolve_base_color_mip(cs: CompiledScene, mat_color: V3, tex_id_f,
+                           u, v) -> V3:
+    """Base color from the small ``mip_budget`` atlas where textured,
+    material color elsewhere (deferred-texture mode's secondary bounces)."""
+    textured = tex_id_f >= 0.0
+    tid = jnp.where(textured, tex_id_f, 0.0).astype(jnp.int32)
+    idx = _nearest_index(tid, u, v, cs.mip_width, cs.mip_height,
+                         cs.mip_offset, cs.n_textures)
+    rgb = _unpack_rgb(cs.mip_atlas[idx])
     return V3.where(textured, rgb, mat_color)

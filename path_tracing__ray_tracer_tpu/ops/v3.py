@@ -1,10 +1,10 @@
-"""SoA 3-vectors for TPU: three separate arrays instead of a trailing dim of 3.
+"""SoA 3-vectors: three separate arrays instead of a trailing dim of 3.
 
-TPU vector registers are (8, 128) tiles; an ``(N, 3)`` array wastes 125 of 128
-lanes on the minor dimension.  Keeping x/y/z as independent ``(N,)`` arrays
-(the classic structure-of-arrays layout the reference's CUDA kernels emulate
-with scalar triples, e.g. ``cuda_renderer.py:115-261``) lets XLA tile every
-component densely and fuse all elementwise math on the VPU.
+An ``(N, 3)`` array puts the short component axis minor, so every vector op
+works on strided data.  Keeping x/y/z as independent ``(N,)`` arrays (the
+classic structure-of-arrays layout the reference's CUDA kernels emulate
+with scalar triples, e.g. ``cuda_renderer.py:115-261``) lets XLA lay every
+component out densely and fuse all elementwise math.
 
 ``V3`` is a pytree (a ``NamedTuple``), so it passes through ``jit`` /
 ``lax.fori_loop`` carries transparently.  Components may be scalars or arrays;

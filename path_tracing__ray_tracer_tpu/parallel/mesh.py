@@ -1,12 +1,12 @@
 """Device meshes for sharded rendering.
 
 The reference has exactly one parallelism strategy — a single-GPU CUDA grid
-(SURVEY.md §2, parallelism inventory).  The TPU design scales the same
-workload over chips: a 2-D logical mesh whose ``tile`` axis splits pixel
+(SURVEY.md §2, parallelism inventory).  This design scales the same
+workload over cards: a 2-D logical mesh whose ``tile`` axis splits pixel
 chunks (data parallel over rays; zero communication) and whose ``sample``
-axis splits samples-per-pixel (accumulator parallel; one ``psum`` over ICI
-per chunk).  Multi-host over DCN falls out of the same mesh since neither
-axis communicates per bounce.
+axis splits samples-per-pixel (accumulator parallel; one ``psum`` per
+chunk).  The cards of a host are joined all to all, so the mesh shape
+follows the algorithm only.
 """
 from __future__ import annotations
 

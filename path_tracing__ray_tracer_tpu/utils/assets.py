@@ -8,13 +8,12 @@ renders.  Resolution order at runtime:
 
 1. ``$PTRT_TEXTURE_DIR`` if set,
 2. ``textures/`` next to the repo root,
-3. the read-only reference mount (``/root/reference/textures``),
-4. otherwise procedurally generated stand-ins (flat face color with a dark
+3. otherwise procedurally generated stand-ins (flat face color with a dark
    border, mimicking a Rubik's sticker; a gradient for the canvas) cached
    under ``textures_generated/``.
 
 Renders are pixel-comparable with the reference only when the real files are
-found (cases 1–3); the fallback keeps every test and demo runnable anywhere.
+found (cases 1–2); the fallback keeps every test and demo runnable anywhere.
 """
 from __future__ import annotations
 
@@ -36,7 +35,6 @@ _TEXTURE_FILES = {
 _SEARCH_DIRS = [
     os.environ.get("PTRT_TEXTURE_DIR"),
     str(Path(__file__).resolve().parents[2] / "textures"),
-    "/root/reference/textures",
 ]
 
 
@@ -56,16 +54,10 @@ def texture_path(name: str) -> str:
 
 def reference_render_path() -> str | None:
     """The reference's published 2000×1500 render (`output_RayTracer.png`),
-    the RMSE comparison target.  Vendored copy first (see
-    ``textures/PROVENANCE.md``), then the read-only reference mount."""
-    for p in (
-        str(Path(__file__).resolve().parents[2] / "reference_artifacts"
-            / "output_RayTracer.png"),
-        "/root/reference/output_RayTracer.png",
-    ):
-        if os.path.isfile(p):
-            return p
-    return None
+    the RMSE comparison target, vendored under ``reference_artifacts/``."""
+    p = str(Path(__file__).resolve().parents[2] / "reference_artifacts"
+            / "output_RayTracer.png")
+    return p if os.path.isfile(p) else None
 
 
 def _generate_stand_ins() -> str:

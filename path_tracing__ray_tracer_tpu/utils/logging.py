@@ -1,4 +1,4 @@
-"""Structured logging — the TPU build's replacement for the reference's ad-hoc
+"""Structured logging — this package's replacement for the reference's ad-hoc
 ``print()`` status text (SURVEY.md §5 "metrics/logging"): same facts (object
 counts, atlas sizes, launch geometry, timing, Mrays/sec) as key-value events.
 """

@@ -1,7 +1,7 @@
 """CLI flag-surface parity and plumb-through (parse-level, no renders).
 
-The reference's flag names/defaults (``/root/reference/main.py:24-46``) are
-the compatibility contract; the additive TPU flags ride alongside.
+The reference's flag names/defaults (its ``main.py:24-46``) are the
+compatibility contract; the additive flags ride alongside.
 """
 import main as cli
 

@@ -1,10 +1,9 @@
 """Deferred-texture mode (``compile_scene(mip_budget=...)``).
 
-The path tracer's dominant per-bounce cost is the exact atlas gather
-(~83% of a Cornell bounce, BENCHMARKS.md).  Deferred mode runs that gather
-once per *path* instead of once per *bounce*: the camera bounce records its
-exact texel index, secondary bounces sample a small mip atlas, and one bulk
-gather resolves every path's camera base color at the chunk fold
+Deferred mode runs the exact atlas gather once per *path* instead of once
+per *bounce*: the camera bounce records its exact texel index, secondary
+bounces sample a small mip atlas, and one bulk gather resolves every path's
+camera base color at the chunk fold
 (``models/path_tracer._regen_chunk``).
 
 Equivalence claim under test: with ``mip_budget == texture_budget`` the mip
@@ -12,10 +11,6 @@ IS the atlas, so deferred rendering must reproduce the exact path up to FMA
 reassociation (the factored ``A + base0*B`` accumulation rounds differently,
 which can flip borderline RR/cutoff decisions on rare lanes — same two-regime
 tolerance as tests/test_regen.py).
-
-The MXU mip kernel itself must be *bit-exact* against the HLO gather
-(per-channel 0-255 bf16 tables; the round-3 packed-f32 single-table variant
-was wrong — MXU inputs round to bf16, truncating 24-bit packed integers).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +18,6 @@ import pytest
 
 import path_tracing__ray_tracer_tpu as ptrt
 from path_tracing__ray_tracer_tpu.models.path_tracer import _path_chunk
-from path_tracing__ray_tracer_tpu.ops.pallas import texture_pallas as tp
 
 
 def _chunk_img(cs, cam12, **kw):
@@ -51,7 +45,7 @@ def test_mip_fields_compiled(cornell_pair):
                                   np.asarray(defer.atlas))
     np.testing.assert_array_equal(np.asarray(defer.mip_offset),
                                   np.asarray(defer.tex_offset))
-    assert tp.fits_mip(defer)
+    assert int(defer.mip_atlas.shape[0]) == int(defer.atlas.shape[0])
 
 
 def test_defer_matches_exact_when_mip_is_atlas(cornell_pair):
@@ -85,22 +79,3 @@ def test_defer_small_mip_close(cornell_pair):
     assert np.isfinite(got).all()
     # secondary-bounce-only perturbation: small mean shift, correlated images
     assert float(np.abs(got - want).mean()) < 0.05 * max(want.mean(), 1e-6)
-
-
-def test_mip_kernel_bit_exact_interpret(cornell_pair, monkeypatch):
-    """MXU one-hot mip gather == HLO gather, bit for bit (interpret mode)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    _, defer, _ = cornell_pair
-    tables = tp.pack_mip_table(defer)
-    n_tex = int(defer.mip_atlas.shape[0])
-    rng = np.random.default_rng(11)
-    idx = jnp.asarray(rng.integers(0, n_tex, size=512), jnp.int32)
-
-    want = tp.mip_gather_rgb(defer, tables, idx)  # CPU → HLO-gather fallback
-    monkeypatch.setattr(tp, "MIP_FORCE_KERNEL", True)
-    with pltpu.force_tpu_interpret_mode():
-        got = tp.mip_gather_rgb(defer, tables, idx)
-    np.testing.assert_array_equal(np.asarray(got.x), np.asarray(want.x))
-    np.testing.assert_array_equal(np.asarray(got.y), np.asarray(want.y))
-    np.testing.assert_array_equal(np.asarray(got.z), np.asarray(want.z))

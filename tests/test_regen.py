@@ -108,12 +108,12 @@ def test_regen_deterministic(cornell):
 
 
 def test_experimental_standard_mode_matches_production(cornell):
-    """Drift guard for the quarantined scheduler fork (VERDICT round-4 weak
-    #6): ``models/experimental.regen_chunk_modes`` is a frozen copy of the
-    multi-mode round-3 scheduler, and production ``_regen_chunk`` delegates
-    to it only when a negative mode is requested — so nothing else would
-    catch the forks drifting apart.  In standard mode (``pipe=False``,
-    ``lod_depth=0``, no mip atlas) the two must run the *same* computation:
+    """Drift guard for the scheduler fork: ``models/experimental
+    .regen_chunk_modes`` is a copy of the multi-mode scheduler, and
+    production ``_regen_chunk`` delegates to it only when a texture mode is
+    requested — so nothing else would
+    catch the forks drifting apart.  In standard mode (``lod_depth=0``, no
+    mip atlas) the two must run the *same* computation:
     exact equality, not the flip tolerance."""
     import jax
 
@@ -128,13 +128,13 @@ def test_experimental_standard_mode_matches_production(cornell):
     cam12 = ptrt.pack_camera(cam)
     kw = dict(n_pix=1024, width=40, height=30, n_samples=4, max_depth=5,
               jitter="independent")
-    static = tuple(kw.keys()) + ("lod_depth", "pipe")
+    static = tuple(kw.keys()) + ("lod_depth",)
     args = (cs, cam12, jnp.int32(64), jnp.uint32(7), jnp.int32(2))
 
     prod = jax.jit(_regen_chunk, static_argnames=static)(
-        *args, **kw, pipe=False)
+        *args, **kw)
     exp = jax.jit(regen_chunk_modes, static_argnames=static)(
-        *args, **kw, lod_depth=0, pipe=False)
+        *args, **kw, lod_depth=0)
     for a, b, ch in zip((prod.x, prod.y, prod.z), (exp.x, exp.y, exp.z),
                         "xyz"):
         np.testing.assert_array_equal(

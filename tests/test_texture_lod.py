@@ -1,4 +1,4 @@
-"""Texture-LOD mode (``TPUPathTracer(texture_lod=...)``).
+"""Texture-LOD mode (``PathTracer(texture_lod=...)``).
 
 Bounces at depth >= ``texture_lod_depth`` sample a small mip atlas instead
 of the ~70 MB full-res one, shrinking the HBM-miss-bound share of the
